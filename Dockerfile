@@ -9,7 +9,7 @@ RUN apt-get update && apt-get install -y --no-install-recommends \
 WORKDIR /opt/mustache-tpu
 COPY . .
 
-RUN pip install --no-cache-dir "jax[tpu]" numpy pandas h5py && \
+RUN pip install --no-cache-dir "jax[cuda12]" numpy h5py && \
     pip install --no-cache-dir -e . && \
     make -C mustache_tpu/io/native
 

@@ -1,13 +1,13 @@
-"""mustache-tpu: TPU-native multi-scale chromatin loop detection.
+"""mustache-tpu: multi-scale chromatin loop detection on JAX.
 
-A from-scratch JAX/XLA/Pallas reimplementation of the Mustache method
+A from-scratch JAX/XLA reimplementation of the Mustache method
 (scale-space difference-of-Gaussians loop calling on Hi-C / Micro-C contact
-maps; reference: ay-lab/mustache v1.3.3). The compute path is designed
-TPU-first: contact maps are tiled into overlapping diagonal-band blocks, the
-whole Gaussian scale-space ladder is evaluated as one batched separable
-convolution on the MXU, space/scale non-maximum suppression runs as a scan
-over DoG planes on the VPU, and statistical testing (exponential-tail
-p-values + Benjamini-Hochberg FDR) runs fused on device in log space.
+maps; reference: ay-lab/mustache v1.3.3). Contact maps are tiled into
+overlapping diagonal-band blocks, the whole Gaussian scale-space ladder is
+evaluated as one batched separable convolution, space/scale non-maximum
+suppression runs as a scan over DoG planes, and statistical testing
+(exponential-tail p-values + Benjamini-Hochberg FDR) runs fused on device
+in log space.
 Blocks are data-parallel across a `jax.sharding.Mesh`.
 """
 

@@ -79,12 +79,9 @@ class DetectionConfig:
     # --- engine knobs (no reference counterpart) ---
     precision: str = "float32"             # "float32" | "float64"
     max_candidates: int = 2048             # per-block candidate capacity
-    block_batch: int = 0                   # blocks per device batch; 0 = auto
+    block_batch: int = 1                   # blocks per device launch
     min_nz: int = 50                       # bail-out: too-few nonzeros
     min_tested: int = 10000                # bail-out: too-few tested pixels
-    use_pallas: str = "auto"               # "auto" | "on" | "off": fused
-                                           # ladder-NMS Pallas kernel (TPU,
-                                           # float32, 128-multiple blocks)
 
     @property
     def distance_px(self) -> int:

@@ -1,4 +1,4 @@
-"""Differential loop detection (two conditions), TPU core.
+"""Differential loop detection (two conditions), device core.
 
 Reproduces ``diff_mustache`` semantics (diff_mustache.py:260-569): the
 scale-space pyramid runs simultaneously on both normalized maps and their
@@ -36,43 +36,34 @@ from jax import lax
 from mustache_tpu.config import DetectionConfig
 from mustache_tpu.detect import (
     SENTINEL, _BandGeom, _band_candidates, _blur_ladder, _cluster_components,
-    _out_spec, _pack_batched, unpack_block,
+    _out_spec, _pack_batched, dense_from_band, require_x64, unpack_block,
 )
 from mustache_tpu.scalespace import LadderSpec, build_ladder
 
 
 def _diff_detect_one(c1, c2, st, log_pt, *, kernels, det_ceil,
-                     planes_per_octave, n_octaves, d_px, intra, K,
-                     band_states=None, diff_p_band=None, band_slices=None):
+                     planes_per_octave, n_octaves, d_px, intra, K):
     dtype = c1.dtype
     st = st.astype(dtype)
     log_pt = log_pt.astype(dtype)
     N = c1.shape[0]
     sent = dtype.type(SENTINEL)
-    if band_slices is None:
-        rows_np = np.arange(N, dtype=np.int32)
-        diag = (jnp.zeros_like(c1, dtype=jnp.int32)
-                + rows_np[None, :] - rows_np[:, None])
+    rows_np = np.arange(N, dtype=np.int32)
+    diag = (jnp.zeros_like(c1, dtype=jnp.int32)
+            + rows_np[None, :] - rows_np[:, None])
 
-        nz1 = (c1 != 0) & (diag >= 4)
-        nz2 = (c2 != 0) & (diag >= 4)
-        nzd = nz1 & nz2
-        nz1_count = jnp.sum(nz1, dtype=jnp.int32)
-        nz2_count = jnp.sum(nz2, dtype=jnp.int32)
+    nz1 = (c1 != 0) & (diag >= 4)
+    nz2 = (c2 != 0) & (diag >= 4)
+    nzd = nz1 & nz2
+    nz1_count = jnp.sum(nz1, dtype=jnp.int32)
+    nz2_count = jnp.sum(nz2, dtype=jnp.int32)
 
-        c1 = jnp.where(diag <= 4, sent, c1)
-        c2 = jnp.where(diag <= 4, sent, c2)
-        if intra:
-            c1 = jnp.where(diag >= d_px + 1, sent, c1)
-            c2 = jnp.where(diag >= d_px + 1, sent, c2)
-        cd = jnp.where(nzd, c1 - c2, dtype.type(0.0))
-    else:
-        # band-resident fast path (fused batched callers, which also
-        # precompute diff_p_band): support masks and sentinel maps come
-        # from the chromosome-band slices, so the dense blocks' values
-        # are never read here — see detect._detect_one's band_slice note
-        # (four dense<->band relayout copies per condition avoided)
-        assert band_states is not None and diff_p_band is not None
+    c1 = jnp.where(diag <= 4, sent, c1)
+    c2 = jnp.where(diag <= 4, sent, c2)
+    if intra:
+        c1 = jnp.where(diag >= d_px + 1, sent, c1)
+        c2 = jnp.where(diag >= d_px + 1, sent, c2)
+    cd = jnp.where(nzd, c1 - c2, dtype.type(0.0))
 
     S = kernels.shape[0]
     bpo = planes_per_octave + 3   # blurs per octave (LadderSpec shape)
@@ -83,35 +74,24 @@ def _diff_detect_one(c1, c2, st, log_pt, *, kernels, det_ceil,
     # p-value is FROZEN per octave
     sel = np.concatenate([[o * bpo + 1, o * bpo + 2]
                           for o in range(n_octaves)])
-    if diff_p_band is None:
-        Gdiff = _blur_ladder(cd, kernels[sel])          # [2*n_oct, N, N]
-
     geom = _BandGeom(c1, d_px)
     Dl = geom.Dl
     zerof = dtype.type(0.0)
-    if band_states is None:
+    with jax.named_scope("blur_ladder"):
+        Gdiff = _blur_ladder(cd, kernels[sel])          # [2*n_oct, N, N]
         G = _blur_ladder(jnp.stack([c1, c2]), kernels)  # [2, S, N, N]
         Gb = jax.vmap(lambda g: geom.shear(g, zerof))(
             G.reshape(2 * S, N, N)).reshape(2, S, N, Dl)
-    if diff_p_band is None:
-        Gdb = jax.vmap(lambda g: geom.shear(g, zerof))(Gdiff)  # [2*n_oct, N, Dl]
+        Gdb = jax.vmap(lambda g: geom.shear(g, zerof))(Gdiff)
 
     pinf = dtype.type(np.inf)
     zero = dtype.type(0.0)
 
-    if band_slices is not None:
-        bsrc = {m: jnp.where(geom.band_validl, sl[:, :Dl], zero)
-                for m, sl in ((1, band_slices[0]), (2, band_slices[1]))}
-        nzb = {m: geom.band_validl & (bsrc[m] != 0) & (geom.band_dl >= 4)
-               for m in (1, 2)}
-        nz1_count = jnp.sum(nzb[1], dtype=jnp.int32)
-        nz2_count = jnp.sum(nzb[2], dtype=jnp.int32)
-    else:
-        nzb = {1: geom.shear(nz1, False), 2: geom.shear(nz2, False)}
-        nzbd = geom.shear(nzd, False)
-        nzbd_f = nzbd.astype(dtype)
-        inv_nzd = (1.0 / jnp.maximum(jnp.sum(nzd, dtype=jnp.int32), 1)
-                   .astype(dtype))
+    nzb = {1: geom.shear(nz1, False), 2: geom.shear(nz2, False)}
+    nzbd = geom.shear(nzd, False)
+    nzbd_f = nzbd.astype(dtype)
+    inv_nzd = (1.0 / jnp.maximum(jnp.sum(nzd, dtype=jnp.int32), 1)
+               .astype(dtype))
     nzbf = {m: nzb[m].astype(dtype) for m in (1, 2)}
     inv_nz = {m: 1.0 / jnp.maximum(c, 1).astype(dtype)
               for m, c in ((1, nz1_count), (2, nz2_count))}
@@ -151,15 +131,9 @@ def _diff_detect_one(c1, c2, st, log_pt, *, kernels, det_ceil,
             return (tuple(new_roll), new_states[0], new_states[1]), None
         return step
 
-    # the per-octave frozen difference DoG plane and its folded-normal
-    # p-value, fit on the joint support (diff_mustache.py:337,371-385) —
-    # shared by the scan path and the fused-kernel recovery path. The
-    # batched fused-kernel caller precomputes these planes OUTSIDE its
-    # vmap (diff_p_band): a vmapped grouped conv puts the batch dim on
-    # the 128-lane axis, a 16x HBM padding blowup at B=8.
-    if diff_p_band is not None:
-        diff_ps = [diff_p_band[o] for o in range(n_octaves)]
-    else:
+    with jax.named_scope("dog_nms_scan"):
+        # the per-octave frozen difference DoG plane and its folded-normal
+        # p-value, fit on the joint support (diff_mustache.py:337,371-385)
         diff_ps = []
         for o in range(n_octaves):
             Lcf = Gdb[2 * o] - Gdb[2 * o + 1]
@@ -170,37 +144,6 @@ def _diff_detect_one(c1, c2, st, log_pt, *, kernels, det_ceil,
             phi = jnp.where(jnp.isnan(phi), dtype.type(1.0), phi)
             diff_ps.append(jnp.where(phi > 0.5, 1.0 - phi, phi) * 2.0)
 
-    if band_states is not None:
-        # fused-kernel recovery (mirrors detect._detect_one's pallas
-        # branch): per-map best response/plane come from the kernel; the
-        # per-pixel log p is rebuilt from the per-plane exponential-fit
-        # partials, the differential p from the frozen per-octave planes
-        states = {}
-        for m in (1, 2):
-            bv, bsig, locs, sums = band_states[m - 1]
-            means = sums * inv_nz[m]
-            scales_p = means - locs
-            sig_c = jnp.maximum(bsig, 0)
-            loc_map = jnp.zeros_like(bv)
-            scl_map = jnp.ones_like(bv)
-            for k in range(locs.shape[0]):
-                sel_k = sig_c == k
-                loc_map = jnp.where(sel_k, locs[k], loc_map)
-                scl_map = jnp.where(sel_k, scales_p[k], scl_map)
-            logp = -(bv - loc_map) / scl_map
-            # reference scrubs NaN p to 1 (diff_mustache.py:386-387)
-            logp = jnp.where(jnp.isnan(logp), zero, logp)
-            best_logp = jnp.where(nzb[m] & (bsig >= 0), logp, pinf)
-            best_sig = jnp.where(nzb[m], bsig, -1)
-            octv = sig_c // planes_per_octave
-            pair = diff_ps[0]
-            for o in range(1, n_octaves):
-                pair = jnp.where(octv == o, diff_ps[o], pair)
-            best_pair = jnp.where(best_sig >= 0, pair, sent)
-            # kernel init bv=0 matches the scan's best_v init (undetected
-            # support pixels export response 0, diff_mustache.py:446-449)
-            states[m] = (bv, best_logp, best_pair, best_sig)
-    else:
         # carries seeded from the input (Gb * 0 scalar) so their vma type
         # is varying under shard_map — replicated literal carries fail
         # scan typing there (same fix as detect._band_candidates)
@@ -231,35 +174,27 @@ def _diff_detect_one(c1, c2, st, log_pt, *, kernels, det_ceil,
 
     out = {"nz1_count": nz1_count, "nz2_count": nz2_count}
     ceil_table = nz1_count * 0 + np.asarray(det_ceil, np.int32)
-    if band_slices is not None:
-        # sentinel map in band space == shear of the dense sentinel fill
-        def _bc(b):
-            b = jnp.where(geom.band_dl <= 4, sent, b)
-            if intra:
-                b = jnp.where(geom.band_dl >= d_px + 1, sent, b)
-            return jnp.where(geom.band_validl, b, zerof)
-        band_c = {1: _bc(bsrc[1]), 2: _bc(bsrc[2])}
-    else:
-        band_c = {1: geom.shear(c1, zerof), 2: geom.shear(c2, zerof)}
+    band_c = {1: geom.shear(c1, zerof), 2: geom.shear(c2, zerof)}
     # best DoG responses on each map's own support, 1 elsewhere
     # (diff_mustache.py:446-449) — both exported on every candidate's
     # neighborhood so the host can evaluate the differential call
     band_v = {m: jnp.where(nzb[m], states[m][0], dtype.type(1.0))
               for m in (1, 2)}
-    for m in (1, 2):
-        best_v, best_logp, best_pair, best_sigidx = states[m]
-        band_pair = jnp.where(nzb[m], best_pair, dtype.type(1.0))
-        table = _band_candidates(
-            geom, band_logp=best_logp, band_sigidx=best_sigidx,
-            band_nz=nzb[m], band_c=band_c[m],
-            ceil_table=ceil_table, ceil_max=int(np.max(det_ceil)),
-            st=st, log_pt=log_pt, K=K,
-            extras=(
-                ("pair", band_pair, 1.0, np.inf),
-                ("v1", band_v[1], 1.0, 1.0),
-                ("v2", band_v[2], 1.0, 1.0),
-            ))
-        out.update({k + str(m): v for k, v in table.items()})
+    with jax.named_scope("bh_epilogue"):
+        for m in (1, 2):
+            best_v, best_logp, best_pair, best_sigidx = states[m]
+            band_pair = jnp.where(nzb[m], best_pair, dtype.type(1.0))
+            table = _band_candidates(
+                geom, band_logp=best_logp, band_sigidx=best_sigidx,
+                band_nz=nzb[m], band_c=band_c[m],
+                ceil_table=ceil_table, ceil_max=int(np.max(det_ceil)),
+                st=st, log_pt=log_pt, K=K,
+                extras=(
+                    ("pair", band_pair, 1.0, np.inf),
+                    ("v1", band_v[1], 1.0, 1.0),
+                    ("v2", band_v[2], 1.0, 1.0),
+                ))
+            out.update({k + str(m): v for k, v in table.items()})
     return out
 
 
@@ -303,152 +238,36 @@ class DiffBlockDetector:
 
 @functools.lru_cache(maxsize=16)
 def _build_diff_detector_cached(octave_values: tuple, precision: str,
-                                d_px: int, n: int, max_candidates: int,
-                                use_pallas: bool = False,
-                                pallas_interpret: bool = False):
+                                d_px: int, n: int, max_candidates: int):
     spec = build_ladder(octave_values)
     dtype = jnp.float64 if precision == "float64" else jnp.float32
     kernels = spec.kernels.astype(dtype)  # numpy: lifted as an HLO literal
-    n_octaves = len(octave_values)
     kw = dict(
         det_ceil=spec.det_ceil,
         planes_per_octave=spec.planes_per_octave,
-        n_octaves=n_octaves,
+        n_octaves=len(octave_values),
         d_px=d_px,
         intra=True,
         K=max_candidates,
     )
 
-    def one(c1, c2, st, log_pt, band_states=None, diff_p_band=None,
-            band_slices=None):
+    def one(c1, c2, st, log_pt):
         return _diff_detect_one(c1.astype(dtype), c2.astype(dtype), st,
-                                log_pt, kernels=kernels,
-                                band_states=band_states,
-                                diff_p_band=diff_p_band,
-                                band_slices=band_slices, **kw)
+                                log_pt, kernels=kernels, **kw)
 
-    if use_pallas:
-        from mustache_tpu.detect import _preamble, band_width
-        from mustache_tpu.kernels.fused_ladder import (
-            build_fused_mats, fused_ladder_nms_batched,
-        )
-        KR, WC, R, TOPPAD, WINROWS = build_fused_mats(spec.kernels)
-
-        def fn_base(b1, b2, st, log_pt, valid=None, band_slices=None):
-            # BOTH conditions' blocks through ONE fused-kernel launch
-            # (grid is [2B, steps]; the per-map expon partials and NMS
-            # states come back split); the tiny difference-map ladder
-            # (2 planes/octave) stays in XLA inside `one`. Pad batch
-            # slots appear mid-sequence in the stacked [2B] batch — the
-            # kernel's per-block valid mask handles that pattern.
-            B = b1.shape[0]
-            cs1, nz1s, _ = jax.vmap(
-                lambda c: _preamble(c.astype(dtype), d_px, True))(b1)
-            cs2, nz2s, _ = jax.vmap(
-                lambda c: _preamble(c.astype(dtype), d_px, True))(b2)
-            stacked = jnp.concatenate([cs1, cs2], axis=0)
-            nzs = jnp.concatenate([nz1s, nz2s], axis=0).astype(jnp.float32)
-            valid2 = None if valid is None else jnp.concatenate(
-                [valid, valid], axis=0)
-            bv, bsig, locs, sums = fused_ladder_nms_batched(
-                stacked, nzs, KR, WC, R=R, TOPPAD=TOPPAD, WINROWS=WINROWS,
-                n_octaves=n_octaves, planes_per_octave=spec.planes_per_octave,
-                DB=band_width(b1.shape[1], d_px),
-                valid=valid2, interpret=pallas_interpret)
-
-            # frozen per-octave differential p (diff_mustache.py:337,
-            # 371-385) computed entirely OUTSIDE the vmap — conv, batched
-            # shear (pure reshapes), and batched reductions all keep
-            # standard layouts; only elementwise selects happen inside
-            # the vmapped recovery (see _diff_detect_one's note on the
-            # 16x batch-minor padding blowup)
-            bpo = spec.planes_per_octave + 3
-            sel = np.concatenate([[o * bpo + 1, o * bpo + 2]
-                                  for o in range(n_octaves)])
-            N_ = b1.shape[1]
-            Dlb = band_width(N_, d_px)
-            zero = jnp.asarray(0.0, dtype)
-            il = lax.broadcasted_iota(jnp.int32, (N_, Dlb), 0)
-            dl = lax.broadcasted_iota(jnp.int32, (N_, Dlb), 1)
-            validl = il + dl < N_
-
-            def band_of(x, fill):
-                # batched shear via the flat [N, N+1] reinterpret
-                lead = x.shape[:-2]
-                flat = x.reshape(lead + (N_ * N_,))
-                ext = jnp.concatenate([flat, flat[..., :N_]], axis=-1)
-                bnd = ext[..., : N_ * (N_ + 1)].reshape(
-                    lead + (N_, N_ + 1))[..., :Dlb]
-                return jnp.where(validl, bnd, fill)
-
-            nzd = nz1s & nz2s
-            cds = jnp.where(nzd, cs1 - cs2, zero)
-            # matmul-form blur (detect._blur_matmul): the batched grouped
-            # conv laid its output batch-minor (T(4,128): B padded to 128
-            # lanes, ~1 GB/block of padded HLO temp), capping the batch
-            # at 4; per-block convs under lax.map at B=8 ran 2x slower
-            # (sequential dispatch). Toeplitz matmuls keep standard
-            # layouts and the MXU busy, lifting the cap to 8.
-            from mustache_tpu.detect import _blur_matmul
-            gd = _blur_matmul(cds, kernels[sel])       # [B, 2*n_oct, N, N]
-            gdb = band_of(gd, zero)
-            nzdb = band_of(nzd, False)
-            nzdbf = nzdb.astype(dtype)
-            inv_nzd = 1.0 / jnp.maximum(
-                jnp.sum(nzd, axis=(1, 2), dtype=jnp.int32),
-                1).astype(dtype)
-            dps = []
-            for o in range(n_octaves):
-                Lcf = gdb[:, 2 * o] - gdb[:, 2 * o + 1]    # [B, N, Dlb]
-                mu = (jnp.sum(Lcf * nzdbf, axis=(1, 2))
-                      * inv_nzd)[:, None, None]
-                var = jnp.sum(jnp.where(nzdb, (Lcf - mu) ** 2, zero),
-                              axis=(1, 2)) * inv_nzd
-                sd = jnp.sqrt(var)[:, None, None]
-                phi = jax.scipy.stats.norm.cdf(Lcf, loc=mu, scale=sd)
-                phi = jnp.where(jnp.isnan(phi), jnp.asarray(1.0, dtype),
-                                phi)
-                dps.append(jnp.where(phi > 0.5, 1.0 - phi, phi) * 2.0)
-            diff_p = jnp.stack(dps, axis=1)            # [B, n_oct, N, Dlb]
-
-            if band_slices is not None:
-                return jax.vmap(
-                    lambda c1, c2, dp, a1, s1, l1, m1, a2, s2, l2, m2, \
-                        sl1, sl2: one(
-                        c1, c2, st, log_pt, diff_p_band=dp,
-                        band_states=((a1, s1, l1, m1), (a2, s2, l2, m2)),
-                        band_slices=(sl1.astype(dtype),
-                                     sl2.astype(dtype))),
-                )(b1, b2, diff_p, bv[:B], bsig[:B], locs[:B], sums[:B],
-                  bv[B:], bsig[B:], locs[B:], sums[B:],
-                  band_slices[0], band_slices[1])
-            return jax.vmap(
-                lambda c1, c2, dp, a1, s1, l1, m1, a2, s2, l2, m2: one(
-                    c1, c2, st, log_pt, diff_p_band=dp,
-                    band_states=((a1, s1, l1, m1), (a2, s2, l2, m2))),
-            )(b1, b2, diff_p, bv[:B], bsig[:B], locs[:B], sums[:B],
-              bv[B:], bsig[B:], locs[B:], sums[B:])
-    else:
-        def fn_base(b1, b2, st, log_pt, valid=None, band_slices=None):
-            return jax.vmap(one, in_axes=(0, 0, None, None))(b1, b2, st,
-                                                             log_pt)
+    def fn_base(b1, b2, st, log_pt):
+        return jax.vmap(one, in_axes=(0, 0, None, None))(b1, b2, st, log_pt)
 
     def fn_band_base(band1, band2, starts, st, log_pt):
         # chromosome bands resident on device; blocks are dynamic row
         # slices + dense reconstruction (detect.dense_from_band). Pad
-        # slots carry start -1 (clamped slice; kernel skips their compute)
-        from mustache_tpu.detect import dense_from_band
-
+        # slots carry start -1 (clamped slice; discarded on the host)
         def slc(band, s):
             return lax.dynamic_slice_in_dim(band, jnp.maximum(s, 0), n, 0)
 
-        valid = (starts >= 0).astype(jnp.int32)
-        sl1 = jax.vmap(lambda s: slc(band1, s))(starts)
-        sl2 = jax.vmap(lambda s: slc(band2, s))(starts)
-        b1 = jax.vmap(dense_from_band)(sl1)
-        b2 = jax.vmap(dense_from_band)(sl2)
-        return fn_base(b1, b2, st, log_pt, valid,
-                       band_slices=(sl1, sl2) if use_pallas else None)
+        b1 = jax.vmap(lambda s: dense_from_band(slc(band1, s)))(starts)
+        b2 = jax.vmap(lambda s: dense_from_band(slc(band2, s)))(starts)
+        return fn_base(b1, b2, st, log_pt)
 
     out_shapes = jax.eval_shape(
         one, jax.ShapeDtypeStruct((n, n), dtype),
@@ -463,15 +282,13 @@ def _build_diff_detector_cached(octave_values: tuple, precision: str,
 
 def build_diff_detector(cfg: DetectionConfig, n: int, *, intra: bool = True,
                         max_candidates: int | None = None) -> DiffBlockDetector:
-    from mustache_tpu.detect import _resolve_pallas
-
     if not intra:
         raise NotImplementedError("inter-chromosomal detection not supported")
+    require_x64(cfg)
     spec, fn, fn_single, fn_band, fn_band_packed, out_spec = \
         _build_diff_detector_cached(
             cfg.octave_values, cfg.precision, cfg.distance_px, n,
-            max_candidates or cfg.max_candidates, _resolve_pallas(cfg),
-            getattr(cfg, "_pallas_interpret", False))
+            max_candidates or cfg.max_candidates)
     return DiffBlockDetector(cfg=cfg, spec=spec, n=n, _fn=fn,
                              _fn_single=fn_single, _fn_band=fn_band,
                              _fn_band_packed=fn_band_packed,
@@ -570,40 +387,6 @@ def finish_diff_block(out: dict, *, start: int, cfg: DetectionConfig,
 # per-chromosome orchestration (mirrors pipeline.detect_loops_coo)
 # ---------------------------------------------------------------------------
 
-def _auto_batch_diff(n: int, cfg: DetectionConfig, backend: str,
-                     nblocks: int) -> int:
-    from mustache_tpu.detect import _resolve_pallas
-
-    if cfg.block_batch:
-        return cfg.block_batch
-    if backend == "cpu":
-        cap = 1
-    elif _resolve_pallas(cfg):
-        # fused-kernel path: both maps' ladders run in-kernel with no
-        # [S,N,N] stack. The difference-map ladder runs as Toeplitz
-        # matmuls (detect._blur_matmul) with standard layouts — the live
-        # peak per block is the two einsum operands/results at
-        # ~2 x S' x N^2 x 4 B (S'=2/octave), plus the stacked [2B]
-        # kernel state; cap at 8 (the [2B] grid doubles the single-map
-        # batch) under the same 6 GB guard. The batch-minor grouped conv
-        # this replaces OOMed at B=8 (2x7.6G padded temps).
-        itemsize = 8 if cfg.precision == "float64" else 4
-        per_block = 40 * n * n * itemsize
-        cap = max(1, min(8, int(6e9 // per_block)))
-    else:
-        # triple ladder: ~3x the single-map XLA path's live blur buffers
-        itemsize = 8 if cfg.precision == "float64" else 4
-        per_block = 135 * n * n * itemsize
-        cap = max(1, min(4, int(6e9 // per_block)))
-    # memory-only cap; the launch-vs-slot cost model picks B (see
-    # pipeline._pick_batch). A diff slot costs ~2.5x a single-map slot
-    # (two ladders + recovery + two candidate tables, measured in the
-    # r04 B-sweep: nblocks=6 B=2/4/8 -> 0.63/0.65/0.78 s), which the
-    # model absorbs by scaling the slot term.
-    from mustache_tpu.pipeline import _pick_batch
-    return _pick_batch(nblocks, cap, int(n * 1.6))
-
-
 def _maybe_regrow_diff(block_out: dict, cfg: DetectionConfig,
                        rerun) -> dict:
     """If either condition's candidate table overflowed (more pixels below
@@ -679,6 +462,10 @@ def detect_diff_loops_coo(x1, y1, v1, x2, y2, v2, cfg: DetectionConfig, *,
     x2 = np.asarray(x2, np.int64); y2 = np.asarray(y2, np.int64)
     v1 = np.asarray(v1, np.float64); v2 = np.asarray(v2, np.float64)
 
+    # the float64 path is the reference-parity path: its normalize uses the
+    # reference's np.convolve window sums, not the cumulative-sum form
+    # (which moves q by ~1e-4 relative at chr21 scale)
+    exact_normalize = exact_normalize or cfg.precision == "float64"
     d_px = cfg.distance_px
     n1 = int(max(x1.max(), y1.max())) + 1
     n2 = int(max(x2.max(), y2.max())) + 1
@@ -767,8 +554,9 @@ def detect_diff_loops_coo(x1, y1, v1, x2, y2, v2, cfg: DetectionConfig, *,
     masks = block_mask_sizes(start, end, d_px)
     nblocks = len(start)
 
-    backend = jax.default_backend()
-    B = _auto_batch_diff(width, cfg, backend, nblocks)
+    from mustache_tpu.pipeline import block_batch
+    # triple ladder: ~3x the single-map path's live blur buffers
+    B = block_batch(cfg, width, 135)
     if runner is not None:
         B = runner.round_batch(B)
     det = build_diff_detector(cfg, width)
@@ -786,7 +574,7 @@ def detect_diff_loops_coo(x1, y1, v1, x2, y2, v2, cfg: DetectionConfig, *,
         bands_dev = (place(bands[0]), place(bands[1]))
 
     def pack_starts(idxs, cap):
-        # pad slots carry start -1 (fused kernel skips their compute)
+        # pad slots carry start -1 (clamped slice, discarded on the host)
         starts = np.asarray(
             [start[i] for i in idxs] + [-1] * (cap - len(idxs)), np.int32)
         return runner.place_starts(starts) if runner is not None else starts

@@ -34,9 +34,11 @@ def parse_args(argv):
 def main(argv=None):
     start_time = time.time()
     args = parse_args(sys.argv[1:] if argv is None else argv)
-    if getattr(args, "platform", ""):
-        import jax
+    import jax
+    if args.platform:
         jax.config.update("jax_platforms", args.platform)
+    if args.precision == "float64":
+        jax.config.update("jax_enable_x64", True)
     from mustache_tpu.runtime import enable_compilation_cache
     enable_compilation_cache()
     print("\n")
@@ -113,10 +115,10 @@ def main(argv=None):
         print("Interchromosomal analysis is not supported.")
         return 1
 
-    coordinator, nprocs, procid = resolve_distributed(args)
+    coordinator, nprocs, procid, local_ids = resolve_distributed(args)
     if nprocs > 1:
         from mustache_tpu.sharding import initialize_distributed
-        initialize_distributed(coordinator, nprocs, procid)
+        initialize_distributed(coordinator, nprocs, procid, local_ids)
 
     runner = make_cli_runner(args.engine_mesh)
     from mustache_tpu.runlog import RunLog

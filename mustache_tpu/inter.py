@@ -44,7 +44,8 @@ from jax import lax
 
 from mustache_tpu.config import DetectionConfig
 from mustache_tpu.detect import (_blur_ladder, _max3x3, _bh_lookup,
-                                 _logq_from_sorted, _cluster_components)
+                                 _logq_from_sorted, _cluster_components,
+                                 require_x64)
 from mustache_tpu.scalespace import LadderSpec, build_ladder
 
 OVERLAP = 128  # covers the ladder radius (13), NMS (1), clustering (3)
@@ -249,6 +250,7 @@ def _build_inter_detector_cached(octave_values: tuple, precision: str,
 
 def build_inter_detector(cfg: DetectionConfig, n: int,
                          max_candidates: int | None = None):
+    require_x64(cfg)
     spec, fn, fn_single = _build_inter_detector_cached(
         cfg.octave_values, cfg.precision, n,
         max_candidates or cfg.max_candidates)
@@ -335,9 +337,8 @@ def detect_inter_loops_coo(x, y, v, cfg: DetectionConfig, *,
 
     # tile batches (dense H2D; inter maps are sparse enough that COO-side
     # optimizations matter less than on the intra band path)
-    B = max(1, min(4, int(4e9 // (45 * chunk * chunk
-                                   * np.dtype(dtype).itemsize))))
-    B = min(B, len(tiles))
+    from mustache_tpu.pipeline import block_batch
+    B = min(block_batch(cfg, chunk, 45), len(tiles))
 
     order = np.argsort(x, kind="stable")
     xs, ys, vs = x[order], y[order], v[order]

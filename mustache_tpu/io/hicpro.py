@@ -19,9 +19,8 @@ the text-path semantics exactly (mustache.py:264-277).
 from __future__ import annotations
 
 import numpy as np
-import pandas as pd
 
-from mustache_tpu.io.text import sniff_separator
+from mustache_tpu.io.text import read_table, sniff_separator, strip_chr
 
 
 def read_hicpro(matrix_path: str, bed_path: str, distance_bp: int, bias,
@@ -32,19 +31,17 @@ def read_hicpro(matrix_path: str, bed_path: str, distance_bp: int, bias,
     empty = (np.array([], np.int64), np.array([], np.int64),
              np.array([], np.float64))
 
-    bed = pd.read_csv(bed_path, sep=sniff_separator(bed_path),
-                      header=None).dropna()
-    if bed.shape[1] < 4:
+    bed = read_table(bed_path, sniff_separator(bed_path), str_cols=(0,))
+    if len(bed) < 4:
         raise ValueError(
             f"HiC-Pro bed needs 4 columns (chrom start end id), "
-            f"got {bed.shape[1]} in {bed_path}")
+            f"got {len(bed)} in {bed_path}")
     want = normalize_chrom(chromosome)
-    on_chrom = bed[0].astype(str).str.replace(
-        "chr", "", regex=False).eq(want).to_numpy()
+    on_chrom = strip_chr(bed[0]) == want
     if not on_chrom.any():
         return empty
-    ids = bed[3].to_numpy(np.int64)[on_chrom]
-    starts = bed[1].to_numpy(np.int64)[on_chrom]
+    ids = bed[3].astype(np.int64)[on_chrom]
+    starts = bed[1].astype(np.int64)[on_chrom]
     bed_rows = np.nonzero(on_chrom)[0]   # file line number per kept id
     # bin id -> in-chromosome bin index (dense lookup over the id range)
     id_lo, id_hi = int(ids.min()), int(ids.max())
@@ -55,15 +52,14 @@ def read_hicpro(matrix_path: str, bed_path: str, distance_bp: int, bias,
     id_to_row = np.full(id_hi - id_lo + 1, -1, np.int64)
     id_to_row[ids - id_lo] = bed_rows
 
-    mat = pd.read_csv(matrix_path, sep=sniff_separator(matrix_path),
-                      header=None).dropna()
-    if mat.shape[1] != 3:
+    mat = read_table(matrix_path, sniff_separator(matrix_path))
+    if len(mat) != 3:
         raise ValueError(
             f"HiC-Pro matrix needs 3 columns (id1 id2 count), "
-            f"got {mat.shape[1]} in {matrix_path}")
-    i1 = mat[0].to_numpy(np.int64)
-    i2 = mat[1].to_numpy(np.int64)
-    v = mat[2].to_numpy(np.float64)
+            f"got {len(mat)} in {matrix_path}")
+    i1 = mat[0].astype(np.int64)
+    i2 = mat[1].astype(np.int64)
+    v = mat[2]
 
     keep = (i1 >= id_lo) & (i1 <= id_hi) & (i2 >= id_lo) & (i2 <= id_hi)
     i1, i2, v = i1[keep], i2[keep], v[keep]

@@ -14,7 +14,11 @@ bias factor at both anchors.
 from __future__ import annotations
 
 import numpy as np
-import pandas as pd
+
+# field values that the reference's pandas reader turns into NaN (and its
+# dropna then drops): empty fields and the usual missing-value markers
+_NA = frozenset({"", "NA", "N/A", "n/a", "NaN", "nan", "-NaN", "-nan",
+                 "null", "NULL", "None", "#N/A", "<NA>"})
 
 
 def sniff_separator(path: str) -> str:
@@ -33,6 +37,67 @@ def sniff_separator(path: str) -> str:
     raise FileNotFoundError(path)
 
 
+def read_table(path: str, sep: str, str_cols=()) -> list[np.ndarray]:
+    """Columns of a headerless delimited text file, with every row that
+    has a missing field dropped — the numpy twin of the reference's
+    ``pd.read_csv(path, sep=sep, header=None).dropna()``.
+
+    The column count comes from the first non-blank line. A row with fewer
+    fields, an empty field or a missing-value marker is dropped; a row
+    with more fields is an error, as in pandas. Columns listed in
+    ``str_cols`` come back as str arrays, the others as float64. Blank
+    lines are skipped."""
+    with open(path) as fh:
+        first = next((ln for ln in fh if ln.strip()), None)
+    if first is None:
+        return []
+    width = len(first.rstrip("\r\n").split(sep))
+    fields = [(f"f{i}", "U64" if i in str_cols else "f8")
+              for i in range(width)]
+    try:
+        # fast path: numpy's C parser, one pass over clean files
+        arr = np.loadtxt(path, delimiter=sep, dtype=fields, comments=None,
+                         ndmin=1)
+        cols = [arr[name] for name, _ in fields]
+    except ValueError:
+        cols = _read_table_rows(path, sep, width, str_cols)
+    keep = np.ones(len(cols[0]), bool)
+    for i, col in enumerate(cols):
+        if i in str_cols:
+            keep &= ~np.isin(col, list(_NA))
+        else:
+            keep &= ~np.isnan(col)
+    return [col[keep] for col in cols]
+
+
+def _read_table_rows(path, sep, width, str_cols):
+    """Row-by-row parse for files the fast path refuses (short rows, empty
+    fields); rows with a missing field are dropped here already."""
+    cols = [[] for _ in range(width)]
+    with open(path) as fh:
+        for lineno, line in enumerate(fh, 1):
+            line = line.rstrip("\r\n")
+            if not line.strip():
+                continue
+            parts = line.split(sep)
+            if len(parts) > width:
+                raise ValueError(
+                    f"{path}:{lineno}: expected {width} fields, "
+                    f"saw {len(parts)}")
+            if len(parts) < width or any(p.strip() in _NA for p in parts):
+                continue
+            for i, p in enumerate(parts):
+                cols[i].append(p if i in str_cols else float(p))
+    return [np.asarray(c, dtype=str if i in str_cols else np.float64)
+            for i, c in enumerate(cols)]
+
+
+def strip_chr(names: np.ndarray) -> np.ndarray:
+    """Chromosome names with every ``chr`` removed, as the reference
+    matches them (``.str.replace("chr", "")``)."""
+    return np.char.replace(names.astype(str), "chr", "")
+
+
 def read_text_contacts(path: str, distance_bp: int, bias, chromosome, res: int):
     """Load COO triplets for one chromosome from a text contact list.
 
@@ -43,26 +108,20 @@ def read_text_contacts(path: str, distance_bp: int, bias, chromosome, res: int):
 
     empty = (np.array([], np.int64), np.array([], np.int64), np.array([], np.float64))
     sep = sniff_separator(path)
-    df = pd.read_csv(path, sep=sep, header=None)
-    df = df.dropna()
-    if df.shape[1] == 5:
+    with open(path) as fh:
+        first = next((ln for ln in fh if ln.strip()), "")
+    ncols = len(first.rstrip("\r\n").split(sep))
+    if ncols == 5:
+        c1, m1, c2, m2, count = read_table(path, sep, str_cols=(0, 2))
         want = normalize_chrom(chromosome)
-        chrom_ok = (
-            df[0].astype(str).str.replace("chr", "", regex=False).eq(want)
-            & df[2].astype(str).str.replace("chr", "", regex=False).eq(want)
-        )
-        df = df.loc[chrom_ok]
-        if df.shape[0] == 0:
+        chrom_ok = (strip_chr(c1) == want) & (strip_chr(c2) == want)
+        if not chrom_ok.any():
             return empty
-        m1 = df[1].to_numpy(np.float64)
-        m2 = df[3].to_numpy(np.float64)
-        count = df[4].to_numpy(np.float64)
-    elif df.shape[1] == 3:
-        m1 = df[0].to_numpy(np.float64)
-        m2 = df[1].to_numpy(np.float64)
-        count = df[2].to_numpy(np.float64)
+        m1, m2, count = m1[chrom_ok], m2[chrom_ok], count[chrom_ok]
+    elif ncols == 3:
+        m1, m2, count = read_table(path, sep)
     else:
-        raise ValueError(f"unsupported column count {df.shape[1]} in {path}")
+        raise ValueError(f"unsupported column count {ncols} in {path}")
 
     keep = np.abs(m1 - m2) <= (distance_bp / res + 1) * res
     m1, m2, v = m1[keep], m2[keep], count[keep]

@@ -4,24 +4,29 @@ from __future__ import annotations
 
 import os
 
+# One fixed cache home inside the checkout (listed in .gitignore): the
+# path is part of what a later process must find again, so it never
+# depends on HOME, a temp name, a pid or the time.
+DEFAULT_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache")
 
-def enable_compilation_cache(path: str | None = None):
-    """Persist XLA compilations across processes.
 
-    TPU compiles of the detection graph take O(minutes); the cache turns
-    repeat CLI invocations with the same block shape into millisecond
-    loads. Respects an explicit JAX_COMPILATION_CACHE_DIR.
+def enable_compilation_cache() -> str | None:
+    """Persist XLA compilations across processes; returns the directory.
+
+    Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX already reads it and
+    nothing is changed here. Otherwise the cache lives at
+    :data:`DEFAULT_CACHE_DIR`. The cache is a pure optimization: an
+    unwritable checkout must not crash CLI startup (returns None).
     """
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
     import jax
 
-    cache = (path or os.environ.get("JAX_COMPILATION_CACHE_DIR")
-             or os.path.expanduser("~/.cache/mustache_tpu/jax"))
-    # the cache is a pure optimization: an unwritable HOME (read-only
-    # container, service account) must not crash CLI startup
     try:
-        os.makedirs(cache, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
+        os.makedirs(DEFAULT_CACHE_DIR, exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", DEFAULT_CACHE_DIR)
+    except OSError:
         return None
-    return cache
+    return DEFAULT_CACHE_DIR

@@ -4,13 +4,14 @@ The unit of data parallelism is the detection block (the reference's
 multiprocessing fan-out, mustache.py:913-934, re-expressed as SPMD): a
 ``[B, N, N]`` block batch is sharded over the ``block`` mesh axis. A second
 ``row`` axis shards each block's rows; XLA GSPMD then partitions the blur
-convolutions with automatic halo exchange over ICI and inserts collectives
-(psum/all-gather) for the masked reductions, the BH sort, and top_k — the
-TPU-native answer to the reference's fork+pickle+Manager IPC.
+convolutions with automatic halo exchange and inserts collectives
+(psum/all-gather) for the masked reductions, the BH sort, and top_k — in
+place of the reference's fork+pickle+Manager IPC. The cards of one host are
+joined all to all, so the mesh follows the algorithm alone.
 
 Multi-host: ``initialize_distributed`` wires ``jax.distributed`` so the
-same code runs across pod-slice hosts; per-host block batches are combined
-with ``multihost_utils`` on the driver side.
+same code runs across hosts, one process per host or one per card; per-host
+block batches are combined with ``multihost_utils`` on the driver side.
 """
 
 from __future__ import annotations
@@ -84,8 +85,8 @@ class RowShardPlan:
         """Yield ``(idxs, starts_local)`` per launch: ``idxs`` is the
         global block index per batch slot (None = pad, discarded on host),
         chip-major; ``starts_local`` is the [nd, Bl] slab-relative start
-        matrix (pad slots carry -1: the fused kernel skips their compute,
-        the slice clamps to local row 0, and the host drops them)."""
+        matrix (pad slots carry -1: the slice clamps to local row 0 and
+        the host drops them)."""
         n_launches = -(-self.per_chip // Bl) if self.per_chip else 0
         for k in range(n_launches):
             idxs: list = []
@@ -211,36 +212,17 @@ class MeshRunner:
         key = (slab_rows, Dl, Bl, n_bands, id(detector._fn_band_packed))
         fn = self._rs_cache.get(key)
         if fn is None:
-            try:
-                from jax import shard_map
-            except ImportError:  # older jax
-                from jax.experimental.shard_map import shard_map
-
             inner = detector._fn_band_packed
 
             def local(*args):
                 bands, (starts2, st, lp) = args[:n_bands], args[n_bands:]
                 return inner(*(b[0] for b in bands), starts2[0], st, lp)
 
-            # check_vma=False: the fused Pallas kernel's out_shape carries
-            # no vma type, which the static check rejects on TPU (CPU
-            # tests run the XLA path and never see it). The launch is
-            # embarrassingly parallel — zero collectives — so the varying
-            # -manual-axes analysis has nothing to verify here anyway.
-            kw = {}
-            try:
-                import inspect
-                if "check_vma" in inspect.signature(shard_map).parameters:
-                    kw["check_vma"] = False
-                elif "check_rep" in inspect.signature(shard_map).parameters:
-                    kw["check_rep"] = False      # older jax spelling
-            except (TypeError, ValueError):
-                pass
-            fn = jax.jit(shard_map(
+            fn = jax.jit(jax.shard_map(
                 local, mesh=self.mesh,
                 in_specs=(P("block", None, None),) * n_bands
                 + (P("block", None), P(), P()),
-                out_specs=P("block"), **kw))
+                out_specs=P("block")))
             self._rs_cache[key] = fn
         return fn
 
@@ -282,14 +264,20 @@ def make_runner(mesh, band_placement: str = "replicate") -> MeshRunner:
 
     ``band_placement``: "replicate" (default; every chip holds the band)
     or "rowshard" (each chip holds only its contiguous block range's rows —
-    the 1kb/pod-scale memory- and transfer-bound mode)."""
+    the 1kb genome-scale memory- and transfer-bound mode)."""
     return MeshRunner(mesh, band_placement)
 
 
 def initialize_distributed(coordinator: str | None = None,
                            num_processes: int | None = None,
-                           process_id: int | None = None):
-    """Multi-host bring-up (jax.distributed); no-op when single-process."""
+                           process_id: int | None = None,
+                           local_device_ids: Sequence[int] | None = None):
+    """Multi-process bring-up (jax.distributed); no-op when single-process.
+
+    ``local_device_ids`` pins this process to those cards of its host.
+    Several processes on one host need it: without it each process opens
+    every card and reserves most of its memory, so the second one fails.
+    One process per host leaves it None and drives all local cards."""
     import jax
 
     if num_processes is None or num_processes <= 1:
@@ -298,12 +286,14 @@ def initialize_distributed(coordinator: str | None = None,
         coordinator_address=coordinator,
         num_processes=num_processes,
         process_id=process_id,
+        local_device_ids=(None if local_device_ids is None
+                          else list(local_device_ids)),
     )
 
 
 def shard_chromosomes(chromosomes: Sequence[str], process_id: int,
                       num_processes: int) -> list[str]:
-    """Static chromosome partition across hosts (config-4 benchmark shape:
-    chromosomes x band-tiles over a pod slice)."""
+    """Static chromosome partition across processes (config-4 benchmark
+    shape: chromosomes over processes, blocks over each process's cards)."""
     return [c for i, c in enumerate(chromosomes)
             if i % num_processes == process_id]

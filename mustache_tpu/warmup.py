@@ -1,15 +1,14 @@
 """Ahead-of-time compile-cache warming.
 
-Cold TPU compiles of the detection ladder take minutes on tunneled or
-slow-compile hosts, and a genome-wide run touches several distinct
-shapes. The persistent compilation cache
-(:func:`mustache_tpu.runtime.enable_compilation_cache`) makes every LATER
+Cold compiles of the detection ladder take seconds per shape, and a
+genome-wide run touches several distinct shapes. The persistent
+compilation cache (:func:`mustache_tpu.runtime.enable_compilation_cache`) makes every LATER
 process load each shape in about a second — but the first run of each
 shape still pays full price, in the middle of the user's run.
 
 This module moves that price ahead of time: because band rows ride a
 geometric bucket ladder (:func:`mustache_tpu.bandnorm.bucket_rows`) and
-batch sizes are powers of two (``pipeline._pick_batch``), the complete
+a run uses one batch size (``DetectionConfig.block_batch``), the complete
 set of shapes a run will compile is ENUMERABLE from chromosome sizes
 alone. ``warm()`` AOT-compiles them (``jit.lower().compile()``) into the
 persistent cache so the real run is all cache hits.
@@ -49,29 +48,20 @@ HG38_SIZES = {
 def plan_shapes(cfg, n_bins_list, diff: bool = False):
     """The distinct compile jobs a run over chromosomes of ``n_bins_list``
     bins would trigger: ``(detector (rows, Dl, B) shapes, normalize
-    keys)`` — both small sets thanks to row bucketing and pow2 batches.
-    ``diff`` selects the differential batch picker (its memory cap differs
-    from the single-map one, so the compiled B can differ too)."""
-    import jax
-
+    keys)`` — both small sets thanks to row bucketing and one batch size
+    per run. ``diff`` applies the differential detector's memory model to
+    the batch check."""
     from mustache_tpu.bandnorm import _norm_key, bucket_rows
-    from mustache_tpu.config import chunk_grid
     from mustache_tpu.detect import band_width
-
-    if diff:
-        from mustache_tpu.diff import _auto_batch_diff as batch_fn
-    else:
-        from mustache_tpu.pipeline import _auto_batch as batch_fn
+    from mustache_tpu.pipeline import block_batch
 
     width = cfg.chunk_size
     d_px = cfg.distance_px
     Dl = band_width(width, d_px)
-    backend = jax.default_backend()
+    B = block_batch(cfg, width, 135 if diff else 45)
     shapes, norm_keys = set(), set()
     for n in n_bins_list:
         rows = bucket_rows(max(n, width))
-        start, _ = chunk_grid(n, width, d_px)
-        B = batch_fn(width, cfg, backend, len(start))
         shapes.add((rows, Dl, B))
         norm_keys.add(_norm_key(rows, Dl, n, cfg.resolution, d_px))
     return sorted(shapes), sorted(norm_keys, key=repr)

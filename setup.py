@@ -26,14 +26,16 @@ setup(
     name="mustache-tpu",
     version=__version__,  # noqa: F821
     description=(
-        "TPU-native multi-scale chromatin loop detection for Hi-C and "
-        "Micro-C contact maps (scale-space DoG method, JAX/XLA/Pallas)"
+        "Multi-scale chromatin loop detection for Hi-C and Micro-C "
+        "contact maps on the GPU (scale-space DoG method, JAX/XLA)"
     ),
     packages=find_packages(exclude=["tests"]),
     cmdclass={"build_py": BuildWithNative},
     package_data={"mustache_tpu.io.native": ["*.so", "*.cpp", "Makefile"]},
     python_requires=">=3.10",
-    install_requires=["jax", "numpy", "pandas", "h5py"],
+    install_requires=["jax", "numpy"],
+    # .cool/.mcool input reads HDF5 through h5py, imported on first use
+    extras_require={"cool": ["h5py"]},
     entry_points={
         "console_scripts": [
             "mustache-tpu = mustache_tpu.cli:main",

@@ -1,7 +1,7 @@
 """Behavioral oracle for tests: numpy/scipy rendering of the reference
 algorithm's exact semantics (ay-lab/mustache v1.3.3, mustache.py:595-960).
 
-This module is TEST-ONLY. It exists so the JAX/TPU engine can be checked
+This module is TEST-ONLY. It exists so the JAX engine can be checked
 against an independent implementation of the published method, built from
 the survey of the reference (SURVEY.md section 3.2) using scipy's C
 primitives (`gaussian_filter`, `maximum_filter`, `label`) as ground truth

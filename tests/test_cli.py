@@ -184,3 +184,11 @@ def test_cli_engine_mesh_matches(tmp_path):
     q_off = np.array([float(l.split("\t")[6]) for l in outs["off"][1:]])
     q_rs = np.array([float(l.split("\t")[6]) for l in outs["rowshard"][1:]])
     np.testing.assert_allclose(q_rs, q_off, rtol=5e-3)
+
+
+def test_engine_platform_choices():
+    base = ["-f", "x.txt", "-r", "5kb", "-o", "out.tsv"]
+    assert parse_args(base + ["--engine-platform", "gpu"]).platform == "gpu"
+    assert parse_args(base + ["--engine-platform", "cpu"]).platform == "cpu"
+    with pytest.raises(SystemExit):
+        parse_args(base + ["--engine-platform", "tpu"])

@@ -97,3 +97,45 @@ def test_insufficient_tested_bails_out():
     nz = int(out["nz_count"])
     assert 50 <= nz < 10000
     assert finish_block(out, block_index=0, start=0, cfg=cfg, spec=det.spec) == []
+
+
+def _normalized_block(n, d_px, seed):
+    x, y, v, _ = synthetic_hic(n, d_px, seed=seed, n_loops=8)
+    normalize_sparse(x, y, v, 5000, d_px, work_dtype=np.float32)
+    c = np.zeros((n, n), dtype=np.float32)
+    c[x, y] = v
+    return c
+
+
+@pytest.mark.parametrize("n,d_px,octaves", [(256, 64, 2), (200, 40, 2),
+                                            (256, 64, 3)])
+def test_xla_detector_matches_oracle_f32_shapes(n, d_px, octaves):
+    """The float32 XLA detector against the scipy oracle at the small,
+    odd-sized and three-octave shapes: the f32 rule of
+    test_block_matches_oracle_f32 (>= 95% anchor agreement, q rtol 1e-3)
+    plus equal detection scales on the common anchors. The odd (200, 40)
+    block holds fewer than 10000 testable pixels, so the reference bails
+    out (mustache.py's FDR gate) and both sides must call nothing."""
+    c = _normalized_block(n, d_px, seed=90)
+    cfg = DetectionConfig(resolution=5000, distance_bp=d_px * 5000,
+                          precision="float32", max_candidates=256,
+                          octaves=octaves)
+    det = build_detector(cfg, n)
+    import jax
+    out = jax.tree.map(np.asarray, det.fn_single(c))
+    got = finish_block(out, block_index=0, start=0, cfg=cfg, spec=det.spec)
+    ref = detect_block_oracle(c.astype(np.float64), list(cfg.octave_values),
+                              d_px, cfg.st, cfg.pt)
+    if n * d_px < 10000:
+        assert int(out["n_tested"]) < cfg.min_tested
+        assert ref == [] and got == []
+        return
+    assert len(ref) > 0
+    rmap = {(r[0], r[1]): (r[2], r[3]) for r in ref}
+    gmap = {(r[0], r[1]): (r[2], r[3]) for r in got}
+    common = set(rmap) & set(gmap)
+    assert len(common) >= 0.95 * max(len(rmap), len(gmap))
+    for k in common:
+        np.testing.assert_allclose(gmap[k][0], rmap[k][0], rtol=1e-3,
+                                   atol=1e-7)
+        assert gmap[k][1] == rmap[k][1]

@@ -112,3 +112,33 @@ def test_u16_band_gate():
                            (10, 128))
     assert band.dtype == np.uint16
     assert band[1, 5] == 65535
+
+
+def test_fn_band_pad_slots_match_unpadded_launch():
+    """Batch slots with start -1 (power-of-two padding) are computed and
+    discarded; the valid slots of a padded launch equal an unpadded
+    launch's outputs."""
+    import jax
+
+    from mustache_tpu.bandnorm import bucket_rows
+    from mustache_tpu.detect import band_width, build_detector
+    from mustache_tpu.normalize import normalize_sparse
+
+    n, d_px, n_bins = 256, 64, 320
+    cfg = DetectionConfig(resolution=5000, distance_bp=d_px * 5000,
+                          precision="float32", max_candidates=256)
+    x, y, v, _ = synthetic_hic(n_bins, d_px, seed=97, n_loops=8)
+    normalize_sparse(x, y, v, 5000, d_px, work_dtype=np.float32)
+    band = np.zeros((bucket_rows(max(n_bins, n)), band_width(n, d_px)),
+                    np.float32)
+    sel = (y - x) < band.shape[1]
+    band[x[sel], (y - x)[sel]] = v[sel]
+    det = build_detector(cfg, n)
+    ref = jax.tree.map(np.asarray,
+                       det.fn_band(band, np.asarray([0, 64], np.int32)))
+    got = jax.tree.map(np.asarray,
+                       det.fn_band(band, np.asarray([0, 64, -1, -1],
+                                                    np.int32)))
+    assert int(ref["n_tested"][0]) > 0
+    for k in ref:
+        np.testing.assert_array_equal(ref[k], got[k][:2], err_msg=k)

@@ -190,7 +190,7 @@ def test_rowshard_regrow():
 def test_diff_rowshard_matches_and_logs_bytes():
     """Differential rowshard: slab PAIR per chip, identical rows across
     1/2/4-chip meshes and vs the replicated runner; per-chip bytes logged
-    (VERDICT r04 item 5; diff_mustache.py:630-651 shared-grid analog)."""
+    (diff_mustache.py:630-651 shared-grid analog)."""
     from mustache_tpu.diff import detect_diff_loops_coo
     from mustache_tpu.runlog import RunLog
 

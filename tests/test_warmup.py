@@ -40,21 +40,14 @@ def test_warm_smoke():
 
 
 def test_warm_diff_uses_diff_batch_picker():
-    """Differential warmup must enumerate the DIFF batch picker's shapes
-    (its memory cap differs from the single-map one)."""
-    from mustache_tpu.diff import _auto_batch_diff
-    from mustache_tpu.pipeline import _auto_batch
-    import jax
-
+    """Warmup enumerates the batch size the run will use: the config's
+    block_batch, checked against the differential detector's memory model
+    for diff runs."""
     cfg = DetectionConfig(resolution=100_000, distance_bp=2_000_000)
-    shapes_s, _ = plan_shapes(cfg, [500])
-    shapes_d, _ = plan_shapes(cfg, [500], diff=True)
-    backend = jax.default_backend()
-    from mustache_tpu.config import chunk_grid
-    nblocks = len(chunk_grid(500, cfg.chunk_size, cfg.distance_px)[0])
-    assert shapes_s[0][2] == _auto_batch(cfg.chunk_size, cfg, backend, nblocks)
-    assert shapes_d[0][2] == _auto_batch_diff(cfg.chunk_size, cfg, backend,
-                                              nblocks)
+    for c in (cfg, cfg.with_(block_batch=4)):
+        shapes_s, _ = plan_shapes(c, [500])
+        shapes_d, _ = plan_shapes(c, [500], diff=True)
+        assert shapes_s[0][2] == shapes_d[0][2] == c.block_batch
 
 
 def test_warm_diff_smoke():

@@ -3,9 +3,9 @@
 
 Runs the REAL pipeline (`detect_loops_coo(runner=make_runner(mesh))`) on a
 synthetic chromosome at 1, 2, 4, 8 virtual devices and reports blocks/s.
-This is scaling EVIDENCE for the pod-scale claim in the absence of
-multi-chip hardware: the mesh, shardings, collectives, and data path are
-exactly the multi-chip ones; only the backend (host CPU) differs.
+It checks loop-call equality at every mesh width: the mesh, shardings and
+data path are exactly the multi-card ones; only the backend (host CPU)
+differs, so its throughput column measures host cores, not cards.
 
 Usage: python tools/scaling_curve.py   (re-execs itself with
 XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu)
